@@ -1,11 +1,7 @@
-"""Big-scene benchmark: 320k-triangle procedural terrain on real TPU.
+"""Big-scene benchmark: procedural terrain (320k and 819k triangles).
 
-Round-1 VERDICT missing #5: scenes whose BVH nodes bust the ~700 KB SMEM
-budget used to fall back to the XLA packet mode (~0.9 Mrays/s). The
-streamed-nodes Pallas kernel (ops/intersect_pallas_nodes.py) removes the
-ceiling; this measures it end-to-end (auto mode selects it for this scene).
-
-Prints one JSON line per config and writes BENCH_BIG.json.
+Measures the traversal on scenes whose BVH is far larger than the caches,
+end to end, in auto mode. Prints one JSON line per config.
 """
 
 import json
@@ -24,20 +20,11 @@ def main():
     from polaris_tpu.asset.procedural import make_terrain_scene
     from polaris_tpu.render.integrator import TpuRenderer
     from polaris_tpu.render.options import RenderOptions
+    from polaris_tpu.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     results = []
-    # (grid, mode, label): 320k tris fits streamed-triangles at leaf 48;
-    # forcing pallas_nodes isolates the node-streaming cost on the same
-    # scene; 819k tris busts the node budget so auto engages the 8-wide
-    # resident-forest kernel (round 4); the forced pallas_nodes row keeps
-    # the streamed-binary comparison measured
-    cases = [
-        (400, "auto", "terrain320k_auto"),
-        (400, "pallas_nodes", "terrain320k_nodes"),
-        (640, "auto", "terrain819k_auto"),
-        (640, "pallas_nodes", "terrain819k_nodes"),
-    ]
-    for grid, mode, label in cases:
+    for grid, label in ((400, "terrain320k"), (640, "terrain819k")):
         t0 = time.time()
         scene = compile_scene(make_terrain_scene(grid=grid))
         print(
@@ -50,8 +37,7 @@ def main():
         opt = RenderOptions(
             width=res, height=res, spp=spp, num_bounces=3, min_bounces_for_rr=4
         )
-        r = TpuRenderer(scene, mode=mode)
-        r.spp_per_launch = 1  # streamed traversal: keep launches short
+        r = TpuRenderer(scene, mode="auto")
         t0 = time.time()
         img = r.render_u8(opt)  # warmup/compile
         print(f"# {label} compile+first: {time.time()-t0:.1f}s", file=sys.stderr)
@@ -71,8 +57,6 @@ def main():
             }
         )
         print(json.dumps(results[-1]))
-    with open(os.path.join(HERE, "BENCH_BIG.json"), "w") as f:
-        json.dump(results, f, indent=1)
 
 
 if __name__ == "__main__":

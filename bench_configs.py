@@ -1,11 +1,11 @@
-"""All five BASELINE configs measured end-to-end on real TPU.
+"""All five BASELINE configs measured end-to-end on the GPU.
 
 BASELINE.json names five parity configs; this records an honest frame time
 + Mrays/s for each at benchmark scale (BASELINE config 5 is specified at
 1024^2 @ 256 spp — the multi-host variant of that config is
 hardware-blocked here, so the single-chip number stands in).
 
-Prints one JSON line per config and writes BENCH_CONFIGS.json.
+Prints one JSON line per config.
 """
 
 import json
@@ -28,6 +28,10 @@ CONFIGS = [
 
 def main():
     import numpy as np
+
+    from polaris_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from polaris_tpu.asset.compiler.compiler import compile_scene
     from polaris_tpu.asset.wavefront import read_scene
@@ -78,8 +82,6 @@ def main():
         }
         results.append(row)
         print(json.dumps(row))
-    with open(os.path.join(HERE, "BENCH_CONFIGS.json"), "w") as f:
-        json.dump(results, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -34,22 +34,13 @@ from ..scene_data import AREA_LIGHT, ENVIRONMENT_LIGHT, SceneData
 from ..texture import load_texture
 from . import bvh
 
-# BLAS leaf size: end-to-end sweep on sphere 512^2@16spp (docs/perf.md):
-# 12 -> 46.1, 16 -> 46.7, 24 -> 48.0, 32 -> 48.5, 48 -> 49.1, 64 -> 49.0
-# Mrays/s — bigger leaves trade inner-node reduction syncs (the structural
-# tax, ~110 ns each) for tier-gated MT vector work the VPU does at ~60% of
-# light. Env-tunable for sweeps; the Pallas kernels import this as their
-# unroll bound, so kernel and compiler stay consistent within a process.
-# NOTE: streamed-leaf DMA windows require MIN_PRIMITIVES_PER_LEAF*12 <=
-# STREAM_ALIGN (1024) so a leaf always fits the 2-window staging buffer.
+# BLAS leaf size. Bigger leaves trade node visits for triangle tests; 48
+# was tuned for the previous accelerator's packet kernel and has not been
+# re-swept on the GPU (ROADMAP). Env-tunable for sweeps; the packet mode
+# imports this as its dense leaf width.
 import os as _os  # noqa: E402
 
 MIN_PRIMITIVES_PER_LEAF = int(_os.environ.get("POLARIS_LEAF_SIZE", "48"))
-if MIN_PRIMITIVES_PER_LEAF * 12 > 1024:  # holds under `python -O` too
-    raise ValueError(
-        f"POLARIS_LEAF_SIZE={MIN_PRIMITIVES_PER_LEAF} exceeds the streamed-"
-        f"leaf DMA window (need leaf*12 <= 1024)"
-    )
 SCENE_DIFFUSE_MATERIAL = "scene_diffuse_material"
 SCENE_EMISSIVE_MATERIAL = "scene_emissive_material"
 

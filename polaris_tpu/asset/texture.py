@@ -62,6 +62,8 @@ def load_texture(res) -> Texture:
         from .exr import read_exr
 
         return Texture(read_exr(path).astype(np.float32), RGBA32F)
+    if ext == ".png":
+        return _load_png(path)
     return _load_pil(path)
 
 
@@ -74,10 +76,28 @@ def load_texture(res) -> Texture:
 INV255 = np.float32(1.0 / 255.0)
 
 
-def _load_pil(path: str) -> Texture:
-    from PIL import Image
+def _load_png(path: str) -> Texture:
+    from .png import read_png
 
-    img = Image.open(path)
+    px = read_png(path)
+    c = px.shape[-1]
+    arr = px.astype(np.float32) * INV255
+    if c == 1:
+        g = arr[..., 0]
+        return Texture(
+            np.stack([g, g, g, np.ones_like(g)], axis=-1), LUMINANCE8
+        )
+    if c == 2:  # grey + alpha
+        arr = arr[..., [0, 0, 0, 1]]
+    elif c == 3:
+        arr = np.concatenate([arr, np.ones_like(arr[..., :1])], axis=-1)
+    return Texture(arr.astype(np.float32), RGBA8)
+
+
+def _load_pil(path: str) -> Texture:
+    from .png import _pillow
+
+    img = _pillow().open(path)
     if img.mode in ("L", "I;16", "I"):
         arr = np.asarray(img.convert("L"), dtype=np.float32) * INV255
         rgba = np.stack([arr, arr, arr, np.ones_like(arr)], axis=-1)

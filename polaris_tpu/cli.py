@@ -25,6 +25,8 @@ import time
 
 import numpy as np
 
+from .ops.intersect import MODES
+from .utils.cache import enable_compile_cache
 from .utils.log import get_logger, set_level
 
 _log = get_logger("cli")
@@ -42,9 +44,9 @@ def _load_scene(path: str):
 
 
 def _save_png(path: str, img01: np.ndarray) -> None:
-    from PIL import Image
+    from .asset.png import save_image
 
-    Image.fromarray((np.clip(img01, 0, 1) * 255).astype(np.uint8)).save(path)
+    save_image(path, (np.clip(img01, 0, 1) * 255).astype(np.uint8))
     _log.info("wrote %s", path)
 
 
@@ -57,10 +59,7 @@ def _add_render_opts(p: argparse.ArgumentParser) -> None:
                    help="min bounces before Russian roulette")
     p.add_argument("--exposure", type=float, default=1.2)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mode", default="auto",
-                   choices=["auto", "pallas", "pallas_stream", "pallas_nodes",
-                            "pallas8", "pallas_dense", "hybrid", "packet",
-                            "bvh", "brute"],
+    p.add_argument("--mode", default="auto", choices=MODES,
                    help="traversal backend")
     p.add_argument("--tiles", type=int, default=0,
                    help="shard image rows over this many devices (0 = single)")
@@ -88,14 +87,13 @@ def _add_render_opts(p: argparse.ArgumentParser) -> None:
     p.add_argument("--regen", action="store_true",
                    help="wavefront path regeneration: a dead lane restarts "
                         "at its own pixel with its next sample index inside "
-                        "the render loop (estimator-exact; measured +1-4%% "
-                        "on the BASELINE configs; forward renders only)")
+                        "the render loop (estimator-exact; forward renders "
+                        "only)")
     p.add_argument("--rr-tile-coherent", action="store_true",
                    help="draw the Russian-roulette uniform per 32x32 block "
                         "instead of per lane: unbiased, no measured variance "
                         "penalty, and blocks die atomically so late-bounce "
-                        "traversal skips whole tiles (+5.6%% on cornell@64spp;"
-                        " see docs/perf.md)")
+                        "traversal skips whole blocks of rays")
     p.add_argument("--blacklist", "-b", default=None,
                    help="skip devices whose names contain this value "
                         "(≙ reference --blacklist, default.go:243-252)")
@@ -373,42 +371,20 @@ def cmd_scene_info(args) -> int:
     return 0
 
 
-# nominal per-chip peak dense bf16 TFLOP/s by device kind, from Google's
-# published TPU specs — the honest analog of the reference's
-# computeUnits x clockMHz GFlops estimate (device.go:209-222), used only as
-# the NaiveScheduler's first-frame speed prior
-_PEAK_BF16_TFLOPS = {
-    "TPU v2": 45.0,
-    "TPU v3": 61.5,
-    "TPU v4": 137.5,
-    "TPU v5 lite": 197.0,
-    "TPU v5": 229.5,
-    "TPU v5p": 229.5,
-    "TPU v6 lite": 459.0,
-}
-
-
-def device_speed(d) -> float:
-    """Nominal peak bf16 TFLOP/s for a device, 0.0 if unknown."""
-    kind = getattr(d, "device_kind", "")
-    for prefix, tflops in sorted(
-        _PEAK_BF16_TFLOPS.items(), key=lambda kv: -len(kv[0])
-    ):
-        if kind.startswith(prefix):
-            return tflops
-    return 0.0
-
-
 def cmd_devices(args) -> int:
-    """List devices (≙ cmd/list_devices.go:13-38, incl. its speed column)."""
+    """List devices (≙ cmd/list_devices.go:13-38): platform, kind and
+    device memory."""
     import jax
 
-    print(f"{'Device':<28} {'Platform':>10} {'Kind':>16} {'Peak bf16':>12}")
-    print("-" * 70)
+    print(f"{'Device':<28} {'Platform':>10} {'Kind':>24} {'Memory':>12}")
+    print("-" * 78)
     for d in jax.devices():
-        sp = device_speed(d)
-        sp_s = f"{sp:.0f} TFLOPs" if sp else "n/a"
-        print(f"{str(d):<28} {d.platform:>10} {d.device_kind:>16} {sp_s:>12}")
+        try:
+            limit = (d.memory_stats() or {}).get("bytes_limit")
+        except Exception:  # backends without memory stats
+            limit = None
+        mem = f"{limit / 2**30:.1f} GiB" if limit else "n/a"
+        print(f"{str(d):<28} {d.platform:>10} {d.device_kind:>24} {mem:>12}")
     return 0
 
 
@@ -455,6 +431,7 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     set_level(args.verbosity)
+    enable_compile_cache()
     return args.fn(args)
 
 

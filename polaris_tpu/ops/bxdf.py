@@ -11,9 +11,9 @@ Counterparts (formulas replicated exactly; see each function):
 
 All functions are vectorized over the ray batch: every material field is a
 per-lane array (gathered from the SoA scene by the material-tree walk), and
-dispatch over the five bxdf types is a where-select — on a TPU every branch
-is cheap VPU math and computing all five then selecting beats divergent
-control flow.
+dispatch over the five bxdf types is a where-select — every branch is cheap
+elementwise math, and computing all five then selecting keeps the lanes in
+lockstep instead of diverging.
 
 ``in_dir`` points AWAY from the surface (the integrator negates the incoming
 ray direction, pt_integrator.cl:86-89); ``out_dir`` also points away.

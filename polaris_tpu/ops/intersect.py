@@ -8,7 +8,8 @@ Counterpart of the reference's traversal kernels
     the instance's world->object matrix, and continue into the mesh BLAS;
     on BLAS exit the ray is restored (intersect.cl:74-88,164-169)
 
-TPU-first redesign (not a port of the SIMT kernel):
+The XLA traversal (the plain reference for the GPU kernel in
+ops/intersect_pallas.py):
 
   * All lanes advance together inside one ``lax.while_loop``; each lane keeps
     its own traversal stack in a [N, 32] array (the reference's per-thread
@@ -21,9 +22,8 @@ TPU-first redesign (not a port of the SIMT kernel):
     speed, not results).
   * For small scenes a ``brute`` mode skips the BVH entirely: a
     ``lax.scan`` over ray chunks tests every instance triangle with dense
-    vectorized Möller–Trumbore — pure VPU work with no gathers, which on a
-    TPU beats pointer-chasing until the triangle count grows into the tens
-    of thousands.
+    vectorized Möller–Trumbore — dense work with no gathers, for scenes of a
+    few thousand triangles and for debugging.
 
 Both modes return identical results (same epsilon semantics,
 intersect.cl:90-125) and are cross-checked against the NumPy golden renderer.
@@ -63,8 +63,8 @@ def _mt_dense(o, d, maxt, v0, e1, e2):
     """Dense Möller–Trumbore: [C] rays x [T] tris -> per-ray best hit.
 
     All contractions are explicit multiply+sum: a K=3 einsum/`@` would lower
-    to an MXU dot_general whose default TPU precision is bf16 — fatally
-    imprecise for intersection tests (and the MXU gains nothing at K=3).
+    to a dot_general whose default f32 precision on the GPU is TF32 — fatally
+    imprecise for intersection tests (and matrix units gain nothing at K=3).
     """
     de = d[:, None, :]
     pvec = V.cross3(jnp, de, e2[None, :, :])
@@ -90,7 +90,7 @@ def intersect_brute(S, o, d, maxt, active, *, inst_tri_ranges, chunk=8192):
 
     ``inst_tri_ranges``: static list of (first_tri, num_tris) per instance
     (recovered from the BLAS at setup). Rays are processed in chunks via
-    lax.scan to bound the [C, T] working set in VMEM/HBM.
+    lax.scan to bound the [C, T] working set in device memory.
     """
     n = o.shape[0]
     pad = (-n) % chunk
@@ -316,158 +316,40 @@ def intersect_bvh(S, o, d, maxt, active, *, any_hit: bool):
     )
 
 
+def auto_mode(platform: str) -> str:
+    """Traversal mode that ``auto`` resolves to on a platform.
+
+    The CPU gets the XLA packet traversal. On the GPU the choice follows the
+    end-to-end frame times in PERF.md. Any other platform has no measured
+    path and is refused rather than silently given one."""
+    if platform == "cpu":
+        return "packet"
+    if platform == "gpu":
+        return GPU_AUTO_MODE
+    raise RuntimeError(f"no traversal mode is measured for platform {platform!r}")
+
+
+# the fastest traversal end to end on the H100 (PERF.md)
+GPU_AUTO_MODE = "pallas"
+MODES = ("auto", "pallas", "packet", "bvh", "brute")
+
+
 def make_intersectors(
     S, scene, mode: str = "auto", brute_chunk: int = 8192, rays_per_tile: int = 64
 ):
     """Build (closest_hit, any_hit) callables for a compiled scene.
 
     mode:
-      'packet' — tile-coherent shared-stack traversal (default; fastest)
-      'bvh'    — per-lane single-ray traversal (reference-faithful fallback)
+      'pallas' — one-ray-per-lane GPU kernel (ops/intersect_pallas.py)
+      'packet' — tile-coherent shared-stack traversal in XLA
+      'bvh'    — per-lane single-ray traversal in XLA (the reference)
       'brute'  — dense all-triangles testing (tiny scenes / debugging)
-      'auto'   — packet
+      'auto'   — ``auto_mode`` of the default device's platform
     """
-    num_tris = int(scene.tri_v0.shape[0])
+    if mode not in MODES:
+        raise ValueError(f"unknown traversal mode {mode!r}; choose from {MODES}")
     if mode == "auto":
-        from .intersect_pallas import SMEM_SCENE_BUDGET, scene_smem_bytes
-
-        on_tpu = any(d.platform != "cpu" for d in __import__("jax").devices())
-        if not on_tpu:
-            mode = "packet"
-        elif scene_smem_bytes(scene) <= SMEM_SCENE_BUDGET:
-            mode = "pallas"
-        elif scene_smem_bytes(scene, stream_tris=True) <= SMEM_SCENE_BUDGET:
-            # BVH nodes fit on-chip; triangles stay in HBM and leaves are
-            # DMA'd on demand (big-scene path)
-            mode = "pallas_stream"
-        else:
-            # even the nodes bust SMEM: 8-wide collapse divides node count
-            # by ~7 so the whole forest stays resident to ~25M tris (round-4
-            # A/B on terrain819k: 5.74 vs 5.65 Mrays/s for the streamed
-            # binary kernel; both are leaf-MT-bound — docs/perf.md round 4);
-            # beyond that the same kernel streams node records from HBM
-            mode = "pallas8_nodes"
-
-    if mode == "pallas_stream":
-        import jax.numpy as jnp
-
-        from .intersect_pallas import intersect_pallas, pack_scene
-
-        P = {
-            k: (v if k == "pk_stream" else jnp.asarray(v))
-            for k, v in pack_scene(scene, stream_tris=True).items()
-        }
-
-        def closest(S, o, d, maxt, active):
-            return intersect_pallas(P, o, d, maxt, active, any_hit=False)
-
-        def any_hit(S, o, d, maxt, active):
-            return intersect_pallas(P, o, d, maxt, active, any_hit=True).mask
-
-        return closest, any_hit
-
-    if mode == "pallas_nodes":
-        import jax.numpy as jnp
-
-        from .intersect_pallas_nodes import (
-            intersect_pallas_nodes,
-            pack_scene_nodes,
-        )
-
-        import os
-
-        # resident-prefix budget: measured on terrain819k (one v5e) —
-        # 500 KB 4.98, 800 KB 5.50, 896 KB 5.67 Mrays/s; 864 keeps ~130 KB
-        # SMEM headroom over the largest tested-working configuration
-        # (pack_scene_nodes additionally deducts per-instance overhead)
-        res_kb = int(os.environ.get("POLARIS_RESIDENT_KB", "864"))
-        PN = {
-            k: (v if k == "pn_resident" else jnp.asarray(v))
-            for k, v in pack_scene_nodes(
-                scene, resident_bytes=res_kb * 1024
-            ).items()
-        }
-
-        def closest(S, o, d, maxt, active):
-            return intersect_pallas_nodes(PN, o, d, maxt, active, any_hit=False)
-
-        def any_hit(S, o, d, maxt, active):
-            return intersect_pallas_nodes(PN, o, d, maxt, active, any_hit=True).mask
-
-        return closest, any_hit
-
-    if mode == "pallas8_nodes":
-        import jax.numpy as jnp
-
-        from .intersect_pallas8_nodes import (
-            intersect_pallas8_nodes,
-            pack_scene8_nodes,
-        )
-
-        import os
-
-        res_kb = int(os.environ.get("POLARIS_RESIDENT_KB", "864"))
-        P8N = {
-            k: (v if k == "p8n_resident" else jnp.asarray(v))
-            for k, v in pack_scene8_nodes(
-                scene, resident_bytes=res_kb * 1024
-            ).items()
-        }
-
-        def closest(S, o, d, maxt, active):
-            return intersect_pallas8_nodes(P8N, o, d, maxt, active, any_hit=False)
-
-        def any_hit(S, o, d, maxt, active):
-            return intersect_pallas8_nodes(
-                P8N, o, d, maxt, active, any_hit=True
-            ).mask
-
-        return closest, any_hit
-
-    if mode == "pallas_dense":
-        import jax.numpy as jnp
-
-        from .intersect_pallas_dense import intersect_pallas_dense, pack_scene_dense
-
-        PD = {k: jnp.asarray(v) for k, v in pack_scene_dense(scene).items()}
-
-        def closest(S, o, d, maxt, active):
-            return intersect_pallas_dense(PD, o, d, maxt, active, any_hit=False)
-
-        def any_hit(S, o, d, maxt, active):
-            return intersect_pallas_dense(PD, o, d, maxt, active, any_hit=True).mask
-
-        return closest, any_hit
-
-    if mode == "hybrid":
-        # BVH packet kernel for coherent primary rays; dense kernel (no
-        # scalar-sync control flow) for incoherent bounce + occlusion rays
-        closest, _ = make_intersectors(S, scene, "pallas")
-        closest_dense, any_hit_dense = make_intersectors(S, scene, "pallas_dense")
-        closest.closest_bounce = closest_dense
-        return closest, any_hit_dense
-
-    if mode == "pallas8":
-        import jax.numpy as jnp
-
-        from .intersect_pallas8 import intersect_pallas8, pack_scene8
-
-        P8 = {k: jnp.asarray(v) for k, v in pack_scene8(scene).items()}
-        from ..asset.compiler.compiler import MIN_PRIMITIVES_PER_LEAF
-
-        def closest(S, o, d, maxt, active):
-            return intersect_pallas8(
-                P8, o, d, maxt, active, any_hit=False,
-                max_leaf=MIN_PRIMITIVES_PER_LEAF,
-            )
-
-        def any_hit(S, o, d, maxt, active):
-            return intersect_pallas8(
-                P8, o, d, maxt, active, any_hit=True,
-                max_leaf=MIN_PRIMITIVES_PER_LEAF,
-            ).mask
-
-        return closest, any_hit
+        mode = auto_mode(jax.devices()[0].platform)
 
     if mode == "pallas":
         import jax.numpy as jnp
@@ -483,7 +365,6 @@ def make_intersectors(
             return intersect_pallas(P, o, d, maxt, active, any_hit=True).mask
 
         return closest, any_hit
-
     if mode == "packet":
         from .intersect_packet import intersect_packet
 

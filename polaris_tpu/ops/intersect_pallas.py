@@ -1,25 +1,32 @@
-"""Pallas TPU kernel: tile-coherent two-level BVH traversal.
+"""Pallas GPU kernel (Triton route): two-level BVH traversal, one ray per lane.
 
-The performance-critical device kernel (SURVEY.md §7 step 4 — "the crux of
-the Mrays/s target"). Same algorithm as ops/intersect_packet.py (shared
-per-tile stack, vote-based descent, dense leaf testing, instance ray
-transforms with restore-on-exit; ≙ the reference's packet kernel
-CL/kernels/intersect.cl:353-575), but compiled as one Pallas program per ray
-tile instead of a frame-wide lockstep lax.while_loop:
+The design follows the reference's SIMT kernels
+(``rayIntersectionQuery`` / ``rayIntersectionTest``, intersect.cl:26-347):
+every lane owns one ray and walks the two-level BVH on its own —
+TLAS, then the instance's world->object transform, then the BLAS, with the
+ray restored when the BLAS is left (intersect.cl:74-88,164-169).
 
-  * the whole scene (BVH nodes, triangles, instance matrices) lives in
-    SMEM — node fetches are 1-2 cycle scalar loads, not HBM gathers
-  * each grid step owns one tile of 1024 rays shaped (8, 128) — the native
-    f32 VPU tile — with all per-ray state resident in VMEM scratch
-  * traversal control flow runs on the TPU scalar core: lax.while_loop over
-    a handful of scalar registers, `pl.when`-predicated vector work, a
-    64-deep SMEM stack
-  * a tile finishes independently — no global lockstep, so the XLA packet
-    mode's "every iteration touches the whole frame's state in HBM"
-    pathology disappears
+  * One program traces ``BLOCK`` rays, one per GPU thread. Scene arrays stay
+    in device memory and are read with per-lane gathers; the L2 holds the
+    hot part of the node and triangle arrays.
+  * Traversal is "while-while" (Aila & Laine 2009): an inner loop walks
+    nodes until every live lane has reached a leaf or finished, then a
+    second inner loop tests leaf triangles (Möller–Trumbore, one triangle
+    per lane per step) until every lane has drained its leaf. Grouping the
+    two kinds of work keeps a warp's lanes on the same instructions.
+  * Near-child-first ordering by slab entry distance, as ops/intersect.py.
+  * Each inner node stores both children's boxes (child boxes in the
+    parent), so a node visit reads one contiguous 48-byte record.
+  * Triton cannot index a per-lane register array, so each lane's 32-deep
+    stack lives in a scratch array in device memory, laid out
+    ``[program, depth, lane]``: lanes at the same depth touch consecutive
+    words, and L1/L2 serve the top entries. Skip links would need no stack
+    but lose near-first ordering, which closest-hit needs to cull by t.
+  * Closest-hit and any-hit (exit on the first hit) share one kernel body.
 
-Falls back (caller-side) to the XLA packet mode when the scene exceeds the
-SMEM budget.
+Results match ``intersect_bvh`` (same epsilon semantics and slab test); on
+the GPU, fused multiply-adds may move t/u/v by an ulp. On the CPU the kernel
+runs in Pallas interpret mode, which is how the tests cover it.
 """
 
 from __future__ import annotations
@@ -30,750 +37,295 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from . import vec as V
-from .intersect import Hit
+from .intersect import STACK_SIZE, Hit
 
-import os as _os
+# rays per program, one per thread: one warp. Measured on the H100 at 2^20
+# rays (PERF.md): 32 rays / 1 warp beat 64/2, 128/4 and 256/8 on sphere and
+# terrain819k — smaller blocks leave the while-while loops sooner.
+BLOCK = 32
+NUM_WARPS = 1
 
-# Packet height (rows of 128 lanes per traversal tile). 8 -> the classic
-# 1024-ray packet over a 32x32 pixel block. 2 -> 256-ray packets over
-# 16x16 blocks: the round-5 replay sweep (ROOFLINE_TERRAIN_*.json) counts
-# 3.3x fewer triangle tests per ray on deep scenes (a tile traverses the
-# UNION of its rays' paths, and the union tightens superlinearly), priced
-# against ~1.6x more reduction syncs. MEASURED NEGATIVE end-to-end
-# (BENCH_TILEROWS.json: the kernel goes scalar-bound at small tiles) —
-# rows=8 stays the default; the knob remains for future hardware.
-# Scope: all traversal kernels + blocked_pixel_order follow this; the
-# adaptive-sampling block granularity (integrator.TILE_LANES=1024) and
-# rng.rr_block_key's 32x32 RR blocks deliberately do NOT (both stay
-# correct/unbiased at any packet size — a convergence "block" just spans
-# several traversal tiles, and coherent-RR deaths span 4 tiles instead
-# of 1, weakening only the tile-skip payoff of that opt-in flag).
-TILE = (int(_os.environ.get("POLARIS_TILE_ROWS", "8")), 128)
-TILE_RAYS = TILE[0] * TILE[1]
-# sub-tiles processed per grid step: amortizes the fixed per-step pipeline
-# overhead (~50us measured) over independent 1024-ray packets. Env-tunable
-# for A/B (VMEM per step = ~14 arrays x BLOCK_TILES x 4 KB).
-BLOCK_TILES = int(_os.environ.get("POLARIS_BLOCK_TILES", "16"))
-BLOCK_RAYS = BLOCK_TILES * TILE_RAYS
-STACK_SIZE = 64
-# must cover the compiler's largest leaf
-from ..asset.compiler.compiler import MIN_PRIMITIVES_PER_LEAF as MAX_LEAF  # noqa: E402
+PHASE_NODE = 0  # visit `node`
+PHASE_TRI = 1   # test triangle `cursor`, `remaining` left in the leaf
+PHASE_POP = 2   # pop the next node (restoring the ray when leaving a BLAS)
+PHASE_DONE = 3
 
-# leaf Möller–Trumbore tier width: the unrolled triangle loop runs in
-# `pl.when(rd > c)`-gated tiers of this many triangles, so partially filled
-# leaves skip whole tiers of vector work instead of masking it lane-wise.
-# Env-tunable; sweep at leaf 48 (docs/perf.md): 4 -> 49.07, 8 -> 49.81,
-# 16 -> 49.58 Mrays/s (tier-boundary ref traffic vs masked dead work).
-LEAF_TIER = int(_os.environ.get("POLARIS_LEAF_TIER", "8"))
-# the unrolled tier loops assume the leaf capacity is a whole number of
-# tiers; a ragged last tier would read the SMEM staging buffer past
-# MAX_LEAF*9 (masked results, but out-of-bounds reads)
-if MAX_LEAF % LEAF_TIER != 0:
-    raise ValueError(
-        f"POLARIS_LEAF_SIZE ({MAX_LEAF}) must be a multiple of "
-        f"POLARIS_LEAF_TIER ({LEAF_TIER})"
-    )
+_NODE_F = 12  # child boxes per inner node: left min/max xyz, right min/max xyz
+_TRI_F = 9    # v0 xyz, e1 xyz, e2 xyz
+_W2O_F = 12   # row-major 3x4 world->object
 
-PHASE_NODE = 0
-PHASE_POP = 1
-PHASE_DONE = 2
 
-# SMEM budget for the packed scene (bytes); beyond this callers fall back.
-# SMEM is ~1 MiB/core; leave headroom for stack/vote scratch
-SMEM_SCENE_BUDGET = 700 * 1024
+def _safe_inv(x):
+    return 1.0 / jnp.where(jnp.abs(x) < 1e-30, jnp.where(x < 0, -1e-30, 1e-30), x)
 
-# HBM slice granularity for streamed leaf DMAs (Mosaic tiles 1D f32 HBM
-# memrefs at 1024 elements; slice shapes must be aligned to it)
-STREAM_ALIGN = 1024
+
+def _any(mask):
+    return jnp.max(mask.astype(jnp.int32)) > 0
 
 
 def _kernel(
-    # --- scalar (SMEM) scene inputs ---
-    ldata_ref,      # (N,) i32
-    rdata_ref,      # (N,) i32
-    order_ref,      # (N,) i32: inner-node static near-child hint,
-                    # axis*2 + (right child on + side) — see pack_scene
-    boxes_ref,      # (N*6,) f32: min xyz, max xyz — flat (2D SMEM arrays
-                    # pad the last dim to 128 lanes and blow the 1MB budget)
-    tris_ref,       # (T*9,) f32: v0 xyz, e1 xyz, e2 xyz — flat; SMEM, or
-                    # HBM when stream_tris (leaves DMA'd on demand)
-    w2o_ref,        # (I*12,) f32: row-major 3x4 world->object — flat
-    root_ref,       # (I,) i32 BLAS roots
-    # --- per-tile (VMEM) ray inputs ---
-    ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, maxt_ref, act_ref,
-    # --- outputs (VMEM) ---
-    t_ref, u_ref, v_ref, tri_ref, inst_ref, found_ref,
-    # --- scratch ---
-    stack_ref,      # SMEM (STACK_SIZE,) i32
-    vote_ref,       # SMEM (8,) i32 scratch for cross-phase scalars
-    fvote_ref,      # SMEM (8,) f32: [one_vote] tile representative ray
-                    # (mean origin, 1/mean direction) for scalar ordering
-    cox, coy, coz, cdx, cdy, cdz,  # VMEM (8,128) f32 current rays
-    cix, ciy, ciz,  # VMEM (8,128) f32 cached inverse directions
-    bden,           # VMEM (8,128) f32 best-hit denominator across leaf tiers
-    tri_buf=None,   # [stream_tris] SMEM (MAX_LEAF*9,) f32 leaf staging
-    dma_sem=None,   # [stream_tris] DMA semaphore
+    links_ref,  # (N*2,) i32: bvh ldata, rdata
+    boxes_ref,  # (N*12,) f32: child boxes of each inner node
+    tris_ref,   # (T*9,) f32
+    w2o_ref,    # (I*12,) f32
+    roots_ref,  # (I,) i32 BLAS roots
+    o_ref, d_ref,  # (n*3,) f32 rays
+    maxt_ref,   # (n,) f32
+    act_ref,    # (n,) i32
+    t_ref, u_ref, v_ref, tri_ref, inst_ref, found_ref,  # (n,) outputs
+    stack_ref,  # (programs*STACK_SIZE*BLOCK,) i32 scratch
     *,
+    n: int,
     any_hit: bool,
-    stream_tris: bool = False,
-    one_vote: bool = True,
-    hh: bool = False,
 ):
-    stride = 12 if hh else 9
-    num_tris = tris_ref.shape[0] // stride
-    num_inst = root_ref.shape[0]
+    f32, i32 = jnp.float32, jnp.int32
+    lane = jax.lax.broadcasted_iota(i32, (BLOCK,), 0)
+    ray = pl.program_id(0) * BLOCK + lane
+    valid = ray < n
+    rc = jnp.where(valid, ray, 0)
+    stack_base = pl.program_id(0) * (STACK_SIZE * BLOCK) + lane
+    num_nodes = links_ref.shape[0] // 2
+    num_tris = tris_ref.shape[0] // _TRI_F
+    num_inst = roots_ref.shape[0]
 
-    def refresh_inv():
-        # inverse directions change only when the current rays do (tile
-        # init / instance transform / BLAS exit restore) — caching them
-        # saves 3 vector divides per inner node
-        qx, qy, qz = cdx[:], cdy[:], cdz[:]
-        cix[:] = 1.0 / jnp.where(
-            jnp.abs(qx) < 1e-30, jnp.where(qx < 0, -1e-30, 1e-30), qx
+    def gather(ref, idx, mask, other=0):
+        return plgpu.load(ref.at[idx], mask=mask, other=other)
+
+    o = [gather(o_ref, rc * 3 + k, valid, 0.0) for k in range(3)]
+    d = [gather(d_ref, rc * 3 + k, valid, 1.0) for k in range(3)]
+    act = valid & (gather(act_ref, rc, valid) != 0)
+    maxt = gather(maxt_ref, rc, valid, 0.0)
+
+    def transform(m, p, q):
+        return (
+            [m[4 * r] * p[0] + m[4 * r + 1] * p[1] + m[4 * r + 2] * p[2]
+             + m[4 * r + 3] for r in range(3)],
+            [m[4 * r] * q[0] + m[4 * r + 1] * q[1] + m[4 * r + 2] * q[2]
+             for r in range(3)],
         )
-        ciy[:] = 1.0 / jnp.where(
-            jnp.abs(qy) < 1e-30, jnp.where(qy < 0, -1e-30, 1e-30), qy
+
+    def where3(c, a, b):
+        return [jnp.where(c, x, y) for x, y in zip(a, b)]
+
+    # ---------------------------------------------------------- node walk
+    def node_step(st):
+        (phase, node, sp, msbi, inst, cursor, remaining, co, cd, ci,
+         best) = st
+        # pop: restore the world-space ray when leaving a BLAS
+        in_pop = phase == PHASE_POP
+        restore = in_pop & (sp == msbi)
+        co = where3(restore, o, co)
+        cd = where3(restore, d, cd)
+        ci = where3(restore, [_safe_inv(x) for x in d], ci)
+        msbi = jnp.where(restore, -1, msbi)
+        sp = jnp.where(in_pop, sp - 1, sp)
+        can_pop = in_pop & (sp >= 0)
+        popped = gather(
+            stack_ref, stack_base + jnp.clip(sp, 0, STACK_SIZE - 1) * BLOCK,
+            can_pop,
         )
-        ciz[:] = 1.0 / jnp.where(
-            jnp.abs(qz) < 1e-30, jnp.where(qz < 0, -1e-30, 1e-30), qz
+        node = jnp.where(can_pop, popped, node)
+        phase = jnp.where(in_pop, jnp.where(sp >= 0, PHASE_NODE, PHASE_DONE),
+                          phase)
+
+        in_node = phase == PHASE_NODE
+        nc = jnp.clip(node, 0, num_nodes - 1)
+        ld = gather(links_ref, nc * 2, in_node)
+        rd = gather(links_ref, nc * 2 + 1, in_node)
+        is_leaf = ld <= 0
+        is_top = in_node & is_leaf & (rd == 0)
+        is_bot = in_node & is_leaf & (rd > 0)
+        is_inner = in_node & ~is_leaf
+
+        # top leaf: enter the instance's BLAS with a transformed ray
+        inst_id = jnp.clip(-ld, 0, num_inst - 1)
+        m = [gather(w2o_ref, inst_id * _W2O_F + k, is_top, 0.0)
+             for k in range(_W2O_F)]
+        to, td = transform(m, co, cd)
+        co = where3(is_top, to, co)
+        cd = where3(is_top, td, cd)
+        ci = where3(is_top, [_safe_inv(x) for x in td], ci)
+        inst = jnp.where(is_top, inst_id, inst)
+        msbi = jnp.where(is_top, sp, msbi)
+        node = jnp.where(is_top, gather(roots_ref, inst_id, is_top), node)
+
+        # bottom leaf: hand the lane to the triangle loop
+        cursor = jnp.where(is_bot, -ld, cursor)
+        remaining = jnp.where(is_bot, rd, remaining)
+        phase = jnp.where(is_bot, PHASE_TRI, phase)
+
+        # inner node: slab-test both children, near first (intersect.cl:135-155)
+        b = [gather(boxes_ref, nc * _NODE_F + k, is_inner, 0.0)
+             for k in range(_NODE_F)]
+
+        def slab(off):
+            t0 = [(b[off + k] - co[k]) * ci[k] for k in range(3)]
+            t1 = [(b[off + 3 + k] - co[k]) * ci[k] for k in range(3)]
+            tmin = [jnp.minimum(x, y) for x, y in zip(t0, t1)]
+            tmax = [jnp.maximum(x, y) for x, y in zip(t0, t1)]
+            minmax = jnp.minimum(jnp.minimum(tmax[0], tmax[1]), tmax[2])
+            maxmin = jnp.maximum(jnp.maximum(tmin[0], tmin[1]), tmin[2])
+            miss = (minmax < 0.0) | (maxmin > minmax) | (maxmin >= best[0])
+            return jnp.where(miss, V.FLT_MAX, maxmin)
+
+        l_dist = slab(0)
+        r_dist = slab(6)
+        want_l = l_dist < V.FLT_MAX
+        want_r = r_dist < V.FLT_MAX
+        both = is_inner & want_l & want_r
+        near_is_l = l_dist <= r_dist
+        far = jnp.where(near_is_l, rd, ld)
+        plgpu.store(
+            stack_ref.at[stack_base + jnp.clip(sp, 0, STACK_SIZE - 1) * BLOCK],
+            far, mask=both,
         )
-        if one_vote:
-            # representative tile ray (mean origin + inverse mean
-            # direction) for the scalar-core near-child ordering —
-            # recomputed only when the rays change, amortizing the 6
-            # reductions + 3 scalar divides over the whole BLAS segment
-            s = 1.0 / TILE_RAYS
+        sp = jnp.where(both, sp + 1, sp)
+        node = jnp.where(both, jnp.where(near_is_l, ld, rd), node)
+        node = jnp.where(is_inner & (want_l ^ want_r),
+                         jnp.where(want_l, ld, rd), node)
+        phase = jnp.where(is_inner & ~want_l & ~want_r, PHASE_POP, phase)
+        return (phase, node, sp, msbi, inst, cursor, remaining, co, cd, ci,
+                best)
 
-            def gdiv(m):
-                return 1.0 / jnp.where(
-                    jnp.abs(m) < 1e-12, jnp.where(m < 0, -1e-12, 1e-12), m
-                )
-
-            fvote_ref[0] = jnp.sum(cox[:]) * s
-            fvote_ref[1] = jnp.sum(coy[:]) * s
-            fvote_ref[2] = jnp.sum(coz[:]) * s
-            fvote_ref[3] = gdiv(jnp.sum(cdx[:]) * s)
-            fvote_ref[4] = gdiv(jnp.sum(cdy[:]) * s)
-            fvote_ref[5] = gdiv(jnp.sum(cdz[:]) * s)
-
-    if stream_tris:
-        # window-reuse tag (mirrors intersect_pallas_nodes): the staging
-        # buffer persists across tiles within a grid step and consecutive
-        # leaf visits usually land in the same aligned 2048-float window
-        # (~4.7 leaves ride along per fetch at leaf 48) — skip the DMA when
-        # the window is already resident. vote_ref[5] holds the staged
-        # block offset; -1 = nothing staged.
-        vote_ref[5] = jnp.int32(-1)
-
-    def run_tile(k, _):
-        act = act_ref[k] != 0
-
-        # init per-sub-tile state
-        cox[:] = ox_ref[k]
-        coy[:] = oy_ref[k]
-        coz[:] = oz_ref[k]
-        cdx[:] = dx_ref[k]
-        cdy[:] = dy_ref[k]
-        cdz[:] = dz_ref[k]
-        refresh_inv()
-        t_ref[k] = jnp.where(act, maxt_ref[k], 0.0)
-        u_ref[k] = jnp.zeros(TILE, jnp.float32)
-        v_ref[k] = jnp.zeros(TILE, jnp.float32)
-        tri_ref[k] = jnp.zeros(TILE, jnp.int32)
-        inst_ref[k] = jnp.zeros(TILE, jnp.int32)
-        found_ref[k] = jnp.zeros(TILE, jnp.int32)
-
-        def live_mask():
-            if any_hit:
-                return act & (found_ref[k] == 0)
-            return act
-
-        def cond(c):
-            return c[0] != PHASE_DONE
-
-        def body(c):
-            phase, node, sp, msbi, inst = c
-            ld = ldata_ref[node]
-            rd = rdata_ref[node]
-            in_node = phase == PHASE_NODE
-            is_leaf = ld <= 0
-            is_top = in_node & is_leaf & (rd == 0)
-            is_bot = in_node & is_leaf & (rd > 0)
-            is_inner = in_node & (~is_leaf)
-
-            # ---------- top-level leaf: transform rays into the instance BLAS
-            inst_id = jnp.clip(-ld, 0, num_inst - 1)
-
-            @pl.when(is_top)
-            def _():
-                m = [w2o_ref[inst_id * 12 + c_] for c_ in range(12)]
-                px, py, pz = cox[:], coy[:], coz[:]
-                cox[:] = m[0] * px + m[1] * py + m[2] * pz + m[3]
-                coy[:] = m[4] * px + m[5] * py + m[6] * pz + m[7]
-                coz[:] = m[8] * px + m[9] * py + m[10] * pz + m[11]
-                qx, qy, qz = cdx[:], cdy[:], cdz[:]
-                cdx[:] = m[0] * qx + m[1] * qy + m[2] * qz
-                cdy[:] = m[4] * qx + m[5] * qy + m[6] * qz
-                cdz[:] = m[8] * qx + m[9] * qy + m[10] * qz
-                refresh_inv()
-
-            msbi = jnp.where(is_top, sp, msbi)
-            inst = jnp.where(is_top, inst_id, inst)
-            node = jnp.where(is_top, root_ref[inst_id], node)
-
-            # ---------- bottom leaf: dense Möller–Trumbore over <= MAX_LEAF tris
-            # best-hit state accumulates in registers across the triangle loop
-            # and is written back to VMEM once.
-            #
-            # DIVISION-FREE inner loop: the per-triangle f32 divide (1/det)
-            # measured 28% of total frame time at 512^2 (replace-with-mul
-            # probe: 578 -> 418 ms). The loop instead scales u/v/t by det
-            # (numerators over a positive det^2 denominator — no sign or
-            # abs needed) and compares best-t via cross-multiplication;
-            # ONE divide per leaf visit converts back. Recovers about a
-            # third of the probe's headroom (578 -> 550 ms) — the rest was
-            # divide *latency* in the dependency chain, which the carried
-            # cross-multiply compare partly reintroduces. Final t/u/v can
-            # differ from the quotient form by ~1 ulp (t = t*det^2/det^2
-            # takes three roundings instead of two), well inside the
-            # oracle-parity tolerances.
-            @pl.when(is_bot)
-            def _():
-                first = -ld
-                live = live_mask()
-                if stream_tris:
-                    # leaf triangles live in HBM (scene too big for SMEM):
-                    # DMA the aligned 2048-float window covering the leaf
-                    # into the SMEM staging buffer (Mosaic requires HBM
-                    # slice shapes aligned to 1024 elements; the covering
-                    # window avoids repacking the triangle array). The
-                    # array is padded so the window never over-reads.
-                    off0 = first * stride
-                    blk = (off0 // STREAM_ALIGN) * STREAM_ALIGN
-                    local = off0 - blk
-
-                    @pl.when(blk != vote_ref[5])
-                    def _():
-                        dma = pltpu.make_async_copy(
-                            tris_ref.at[pl.ds(blk, 2 * STREAM_ALIGN)],
-                            tri_buf,
-                            dma_sem,
-                        )
-                        dma.start()
-                        dma.wait()
-                        vote_ref[5] = blk
-                px, py, pz = cox[:], coy[:], coz[:]
-                qx, qy, qz = cdx[:], cdy[:], cdz[:]
-
-                def hh_tests(j):
-                    # Havel–Herout precomputed-plane test (det²-scaled):
-                    # per-triangle constants are the unnormalized normal N
-                    # with plane offset d0 and two barycentric plane
-                    # equations (N1,d1), (N2,d2). ~15% fewer vector ops per
-                    # triangle than Möller–Trumbore (no per-ray cross
-                    # products). Returns the same (ok, u_num, v_num, t_num,
-                    # det_a) det²-scaled interface.
-                    if stream_tris:
-                        src, base = tri_buf, local + j * 12
-                    else:
-                        src = tris_ref
-                        base = jnp.clip(first + j, 0, num_tris - 1) * 12
-                    nx = src[base + 0]
-                    ny = src[base + 1]
-                    nz = src[base + 2]
-                    d0 = src[base + 3]
-                    n1x = src[base + 4]
-                    n1y = src[base + 5]
-                    n1z = src[base + 6]
-                    d1 = src[base + 7]
-                    n2x = src[base + 8]
-                    n2y = src[base + 9]
-                    n2z = src[base + 10]
-                    d2 = src[base + 11]
-                    det = qx * nx + qy * ny + qz * nz
-                    t_raw = d0 - (px * nx + py * ny + pz * nz)
-                    det_a = det * det
-                    ok = det_a >= V.INTERSECTION_EPSILON * V.INTERSECTION_EPSILON
-                    # scaled hit point P' = det*o + t_raw*d  (P = P'/det)
-                    hx = det * px + t_raw * qx
-                    hy = det * py + t_raw * qy
-                    hz = det * pz + t_raw * qz
-                    u_num = (n1x * hx + n1y * hy + n1z * hz + det * d1) * det
-                    v_num = (n2x * hx + n2y * hy + n2z * hz + det * d2) * det
-                    ok &= (u_num >= 0.0) & (v_num >= 0.0) & (
-                        u_num + v_num <= det_a
-                    )
-                    t_num = t_raw * det
-                    ok &= t_num > V.INTERSECTION_EPSILON * det_a
-                    return ok, u_num, v_num, t_num, det_a
-
-                def mt_tests(j):
-                    # shared Möller–Trumbore det²-scaled geometry tests;
-                    # returns (ok-so-far, u_num, v_num, t_num, det_a)
-                    if hh:
-                        return hh_tests(j)
-                    if stream_tris:
-                        src, base = tri_buf, local + j * 9
-                    else:
-                        src = tris_ref
-                        base = jnp.clip(first + j, 0, num_tris - 1) * 9
-                    v0x = src[base + 0]
-                    v0y = src[base + 1]
-                    v0z = src[base + 2]
-                    e1x = src[base + 3]
-                    e1y = src[base + 4]
-                    e1z = src[base + 5]
-                    e2x = src[base + 6]
-                    e2y = src[base + 7]
-                    e2z = src[base + 8]
-                    # pvec = d x e2
-                    pvx = qy * e2z - qz * e2y
-                    pvy = qz * e2x - qx * e2z
-                    pvz = qx * e2y - qy * e2x
-                    det = e1x * pvx + e1y * pvy + e1z * pvz
-                    det_a = det * det
-                    ok = det_a >= V.INTERSECTION_EPSILON * V.INTERSECTION_EPSILON
-                    tvx = px - v0x
-                    tvy = py - v0y
-                    tvz = pz - v0z
-                    u_num = (tvx * pvx + tvy * pvy + tvz * pvz) * det
-                    ok &= (u_num >= 0.0) & (u_num <= det_a)
-                    qvx = tvy * e1z - tvz * e1y
-                    qvy = tvz * e1x - tvx * e1z
-                    qvz = tvx * e1y - tvy * e1x
-                    v_num = (qx * qvx + qy * qvy + qz * qvz) * det
-                    ok &= (v_num >= 0.0) & (u_num + v_num <= det_a)
-                    t_num = (e2x * qvx + e2y * qvy + e2z * qvz) * det
-                    ok &= t_num > V.INTERSECTION_EPSILON * det_a
-                    return ok, u_num, v_num, t_num, det_a
-
-                if any_hit:
-                    # occlusion query: no best-hit bookkeeping — drop the
-                    # cross-multiplied compares, the 7 selects/triangle, and
-                    # the per-leaf divide; just OR valid hits into `found`
-                    maxt_v = t_ref[k]
-
-                    def tier_any(c0):
-                        bfound = found_ref[k] != 0
-                        for j in range(c0, c0 + LEAF_TIER):
-                            ok, _, _, t_num, det_a = mt_tests(j)
-                            ok &= t_num < maxt_v * det_a
-                            ok &= live & (j < rd)
-                            bfound = bfound | ok
-                        found_ref[k] = bfound.astype(jnp.int32)
-
-                    tier_any(0)
-                    for c0 in range(LEAF_TIER, MAX_LEAF, LEAF_TIER):
-                        pl.when(rd > c0)(functools.partial(tier_any, c0))
-                else:
-                    # best-hit state lives in the output refs (t/u/v hold
-                    # det²-scaled numerators, bden the denominator) so each
-                    # tier can load/store it; one divide at leaf exit
-                    # converts back to quotients
-                    bden[:] = jnp.ones(TILE, jnp.float32)
-
-                    def tier_closest(c0):
-                        bt_num = t_ref[k]
-                        bt_den = bden[:]
-                        bu_num = u_ref[k]
-                        bv_num = v_ref[k]
-                        btri = tri_ref[k]
-                        binst = inst_ref[k]
-                        bfound = found_ref[k]
-                        for j in range(c0, c0 + LEAF_TIER):
-                            ok, u_num, v_num, t_num, det_a = mt_tests(j)
-                            ok &= t_num * bt_den < bt_num * det_a
-                            ok &= live & (j < rd)
-                            bt_num = jnp.where(ok, t_num, bt_num)
-                            bt_den = jnp.where(ok, det_a, bt_den)
-                            bu_num = jnp.where(ok, u_num, bu_num)
-                            bv_num = jnp.where(ok, v_num, bv_num)
-                            btri = jnp.where(ok, first + j, btri)
-                            binst = jnp.where(ok, inst, binst)
-                            bfound = jnp.where(ok, 1, bfound)
-                        t_ref[k] = bt_num
-                        bden[:] = bt_den
-                        u_ref[k] = bu_num
-                        v_ref[k] = bv_num
-                        tri_ref[k] = btri
-                        inst_ref[k] = binst
-                        found_ref[k] = bfound
-
-                    tier_closest(0)
-                    for c0 in range(LEAF_TIER, MAX_LEAF, LEAF_TIER):
-                        pl.when(rd > c0)(functools.partial(tier_closest, c0))
-                    inv = 1.0 / bden[:]
-                    t_ref[k] = t_ref[k] * inv
-                    u_ref[k] = u_ref[k] * inv
-                    v_ref[k] = v_ref[k] * inv
-
-            phase = jnp.where(is_bot, PHASE_POP, phase)
-
-            # ---------- inner node: slab tests + vote (scalars via SMEM scratch)
-            @pl.when(is_inner)
-            def _():
-                live = live_mask()
-                px, py, pz = cox[:], coy[:], coz[:]
-                ix, iy, iz = cix[:], ciy[:], ciz[:]
-                best = t_ref[k]
-
-                def child_dist(ci):
-                    b = [boxes_ref[ci * 6 + k2] for k2 in range(6)]
-                    tx0 = (b[0] - px) * ix
-                    tx1 = (b[3] - px) * ix
-                    ty0 = (b[1] - py) * iy
-                    ty1 = (b[4] - py) * iy
-                    tz0 = (b[2] - pz) * iz
-                    tz1 = (b[5] - pz) * iz
-                    tn = jnp.maximum(
-                        jnp.maximum(jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)),
-                        jnp.minimum(tz0, tz1),
-                    )
-                    tf = jnp.minimum(
-                        jnp.minimum(jnp.maximum(tx0, tx1), jnp.maximum(ty0, ty1)),
-                        jnp.maximum(tz0, tz1),
-                    )
-                    hit = live & ~((tf < 0.0) | (tn > tf) | (tn >= best))
-                    return jnp.where(hit, tn, V.FLT_MAX)
-
-                if one_vote:
-                    # ONE cross-lane reduction per node (vector→scalar syncs
-                    # bound the node rate): pack both children's hit votes
-                    # into a single exact f32 sum — countL + 4096·countR
-                    # (≤ 1024 + 4096·1024 < 2^24, so the sum is exact).
-                    # Near-first ordering comes from the host-precomputed
-                    # split axis/sign + the cached tile direction signs.
-                    hl = child_dist(jnp.clip(ld, 0, None)) < V.FLT_MAX
-                    hr = child_dist(jnp.clip(rd, 0, None)) < V.FLT_MAX
-                    code = hl.astype(jnp.float32) + 4096.0 * hr.astype(
-                        jnp.float32
-                    )
-                    vote_ref[0] = jnp.sum(code).astype(jnp.int32)
-                else:
-                    # two reductions: the tile-min entry distance doubles as
-                    # the vote (< FLT_MAX <=> some ray hit). (A fused
-                    # concatenate+reshape reduction measured ~60% slower —
-                    # Mosaic inserts layout shuffles.)
-                    lmin = jnp.min(child_dist(jnp.clip(ld, 0, None)))
-                    rmin = jnp.min(child_dist(jnp.clip(rd, 0, None)))
-                    vote_ref[0] = (lmin < V.FLT_MAX).astype(jnp.int32)
-                    vote_ref[1] = (rmin < V.FLT_MAX).astype(jnp.int32)
-                    # near-first by tile-min entry distance
-                    vote_ref[2] = jnp.where(lmin <= rmin, ld, rd)
-                    vote_ref[3] = jnp.where(lmin <= rmin, rd, ld)
-
-            if one_vote:
-                si = vote_ref[0]
-                want_l = is_inner & ((si & 4095) != 0)
-                want_r = is_inner & (si >= 4096)
-
-                # near-first ordering on the SCALAR core: slab entry
-                # distance of the tile's representative ray against both
-                # children — overlaps with the vector work and needs no
-                # second reduction sync
-                def rep_tn(ci):
-                    b = [boxes_ref[ci * 6 + k2] for k2 in range(6)]
-                    tx0 = (b[0] - fvote_ref[0]) * fvote_ref[3]
-                    tx1 = (b[3] - fvote_ref[0]) * fvote_ref[3]
-                    ty0 = (b[1] - fvote_ref[1]) * fvote_ref[4]
-                    ty1 = (b[4] - fvote_ref[1]) * fvote_ref[4]
-                    tz0 = (b[2] - fvote_ref[2]) * fvote_ref[5]
-                    tz1 = (b[5] - fvote_ref[2]) * fvote_ref[5]
-                    return jnp.maximum(
-                        jnp.maximum(
-                            jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)
-                        ),
-                        jnp.minimum(tz0, tz1),
-                    )
-
-                near_is_left = rep_tn(jnp.clip(ld, 0, None)) <= rep_tn(
-                    jnp.clip(rd, 0, None)
-                )
-                near = jnp.where(near_is_left, ld, rd)
-                far = jnp.where(near_is_left, rd, ld)
-            else:
-                want_l = is_inner & (vote_ref[0] != 0)
-                want_r = is_inner & (vote_ref[1] != 0)
-                near = vote_ref[2]
-                far = vote_ref[3]
-            both = want_l & want_r
-
-            @pl.when(both)
-            def _():
-                stack_ref[jnp.clip(sp, 0, STACK_SIZE - 1)] = far
-
-            sp = jnp.where(both, sp + 1, sp)
-            node = jnp.where(both, near, node)
-            node = jnp.where(want_l ^ want_r, jnp.where(want_l, ld, rd), node)
-            phase = jnp.where(is_inner & ~(want_l | want_r), PHASE_POP, phase)
-
-            if any_hit:
-                # tile early-out once every live ray is occluded; `found` only
-                # changes at leaves, so the reduction is gated on is_bot
-                @pl.when(is_bot)
-                def _():
-                    vote_ref[4] = jnp.any(act & (found_ref[k] == 0)).astype(jnp.int32)
-
-                phase = jnp.where(
-                    is_bot & (vote_ref[4] == 0), PHASE_DONE, phase
-                )
-
-            # ---------- pop (restore rays when leaving a BLAS)
-            in_pop = phase == PHASE_POP
-            restore = in_pop & (sp == msbi)
-
-            @pl.when(restore)
-            def _():
-                cox[:] = ox_ref[k]
-                coy[:] = oy_ref[k]
-                coz[:] = oz_ref[k]
-                cdx[:] = dx_ref[k]
-                cdy[:] = dy_ref[k]
-                cdz[:] = dz_ref[k]
-                refresh_inv()
-
-            msbi = jnp.where(restore, -1, msbi)
-            sp = jnp.where(in_pop, sp - 1, sp)
-            node = jnp.where(
-                in_pop & (sp >= 0), stack_ref[jnp.clip(sp, 0, STACK_SIZE - 1)], node
-            )
-            phase = jnp.where(
-                in_pop, jnp.where(sp >= 0, PHASE_NODE, PHASE_DONE), phase
-            )
-            return (phase, node, sp, msbi, inst)
-
-        tile_live = jnp.any(act)
-        init = (
-            jnp.where(tile_live, PHASE_NODE, PHASE_DONE).astype(jnp.int32),
-            jnp.int32(0),
-            jnp.int32(0),
-            jnp.int32(-1),
-            jnp.int32(0),
+    # ------------------------------------------------------ triangle loop
+    def tri_step(st):
+        (phase, node, sp, msbi, inst, cursor, remaining, co, cd, ci,
+         best) = st
+        bt, btri, binst, bu, bv, found = best
+        in_tri = phase == PHASE_TRI
+        tc = jnp.clip(cursor, 0, num_tris - 1)
+        tr = [gather(tris_ref, tc * _TRI_F + k, in_tri, 0.0)
+              for k in range(_TRI_F)]
+        v0, e1, e2 = tr[0:3], tr[3:6], tr[6:9]
+        # Möller–Trumbore (intersect.cl:90-125)
+        pv = [cd[1] * e2[2] - cd[2] * e2[1],
+              cd[2] * e2[0] - cd[0] * e2[2],
+              cd[0] * e2[1] - cd[1] * e2[0]]
+        det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2]
+        ok = jnp.abs(det) >= V.INTERSECTION_EPSILON
+        inv_det = 1.0 / jnp.where(ok, det, 1.0)
+        tv = [co[k] - v0[k] for k in range(3)]
+        uu = (tv[0] * pv[0] + tv[1] * pv[1] + tv[2] * pv[2]) * inv_det
+        ok &= (uu >= 0.0) & (uu <= 1.0)
+        qv = [tv[1] * e1[2] - tv[2] * e1[1],
+              tv[2] * e1[0] - tv[0] * e1[2],
+              tv[0] * e1[1] - tv[1] * e1[0]]
+        vv = (cd[0] * qv[0] + cd[1] * qv[1] + cd[2] * qv[2]) * inv_det
+        ok &= (vv >= 0.0) & (uu + vv <= 1.0)
+        tt = (e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2]) * inv_det
+        ok &= (tt > V.INTERSECTION_EPSILON) & (tt < bt)
+        hit = in_tri & ok
+        best = (
+            jnp.where(hit, tt, bt),
+            jnp.where(hit, tc, btri),
+            jnp.where(hit, inst, binst),
+            jnp.where(hit, uu, bu),
+            jnp.where(hit, vv, bv),
+            found | hit.astype(i32),
         )
-        jax.lax.while_loop(cond, body, init)
-        return 0
+        cursor = jnp.where(in_tri, cursor + 1, cursor)
+        remaining = jnp.where(in_tri, remaining - 1, remaining)
+        phase = jnp.where(in_tri & (remaining <= 0), PHASE_POP, phase)
+        if any_hit:
+            phase = jnp.where(hit, PHASE_DONE, phase)
+        return (phase, node, sp, msbi, inst, cursor, remaining, co, cd, ci,
+                best)
 
-    jax.lax.fori_loop(0, BLOCK_TILES, run_tile, 0)
+    def walking(st):
+        return _any((st[0] == PHASE_NODE) | (st[0] == PHASE_POP))
 
+    def testing(st):
+        return _any(st[0] == PHASE_TRI)
+
+    def outer(st):
+        st = jax.lax.while_loop(walking, node_step, st)
+        return jax.lax.while_loop(testing, tri_step, st)
+
+    zi = jnp.zeros((BLOCK,), i32)
+    zf = jnp.zeros((BLOCK,), f32)
+    init = (
+        jnp.where(act, PHASE_NODE, PHASE_DONE).astype(i32),
+        zi, zi, zi - 1, zi, zi, zi,
+        list(o), list(d), [_safe_inv(x) for x in d],
+        (jnp.where(act, maxt, 0.0), zi, zi, zf, zf, zi),
+    )
+    st = jax.lax.while_loop(lambda s: _any(s[0] != PHASE_DONE), outer, init)
+    bt, btri, binst, bu, bv, found = st[-1]
+    for ref, val in ((t_ref, bt), (u_ref, bu), (v_ref, bv), (tri_ref, btri),
+                     (inst_ref, binst), (found_ref, found)):
+        plgpu.store(ref.at[rc], val, mask=valid)
+
+
+def interpret_on(platform: str) -> bool:
+    """Interpret mode on the CPU (the tests); compiled on the GPU."""
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise RuntimeError(f"the traversal kernel has no build for {platform!r}")
 
 
 @functools.lru_cache(maxsize=None)
-def _build_call(
-    num_nodes: int,
-    num_tris: int,
-    num_inst: int,
-    grid: int,
-    any_hit: bool,
-    stream_tris: bool = False,
-    one_vote: bool = True,
-    hh: bool = False,
-):
-    # interpret mode lets the hermetic CPU test suite execute the kernel
-    interpret = jax.default_backend() == "cpu"
-    kernel = functools.partial(
-        _kernel, any_hit=any_hit, stream_tris=stream_tris,
-        one_vote=one_vote, hh=hh,
-    )
-    ray_spec = pl.BlockSpec(
-        (None, BLOCK_TILES) + TILE, lambda g: (g, 0, 0, 0), memory_space=pltpu.VMEM
-    )
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    # streaming mode leaves the triangle array off-chip; leaves are DMA'd
-    # into an SMEM staging buffer on demand (scenes beyond the SMEM budget)
-    tris_spec = pl.BlockSpec(memory_space=pltpu.ANY) if stream_tris else smem()
-    stream_scratch = (
-        [
-            pltpu.SMEM((2 * STREAM_ALIGN,), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ]
-        if stream_tris
-        else []
-    )
+def _build_call(n: int, any_hit: bool, interpret: bool):
+    grid = pl.cdiv(n, BLOCK)
+    whole = lambda: pl.BlockSpec(memory_space=pl.ANY)  # noqa: E731
+    out = lambda dt: jax.ShapeDtypeStruct((n,), dt)  # noqa: E731
     return pl.pallas_call(
-        kernel,
+        functools.partial(_kernel, n=n, any_hit=any_hit),
         grid=(grid,),
-        in_specs=[
-            smem(),     # ldata
-            smem(),     # rdata
-            smem(),     # order
-            smem(),     # boxes
-            tris_spec,  # tris
-            smem(),     # w2o
-            smem(),     # roots
-        ]
-        + [ray_spec] * 8,
-        out_specs=[ray_spec] * 6,
+        in_specs=[whole() for _ in range(9)],
+        out_specs=[whole() for _ in range(7)],
         out_shape=[
-            jax.ShapeDtypeStruct((grid, BLOCK_TILES, *TILE), jnp.float32),  # t
-            jax.ShapeDtypeStruct((grid, BLOCK_TILES, *TILE), jnp.float32),  # u
-            jax.ShapeDtypeStruct((grid, BLOCK_TILES, *TILE), jnp.float32),  # v
-            jax.ShapeDtypeStruct((grid, BLOCK_TILES, *TILE), jnp.int32),    # tri
-            jax.ShapeDtypeStruct((grid, BLOCK_TILES, *TILE), jnp.int32),    # inst
-            jax.ShapeDtypeStruct((grid, BLOCK_TILES, *TILE), jnp.int32),    # found
+            out(jnp.float32), out(jnp.float32), out(jnp.float32),
+            out(jnp.int32), out(jnp.int32), out(jnp.int32),
+            jax.ShapeDtypeStruct((grid * STACK_SIZE * BLOCK,), jnp.int32),
         ],
-        scratch_shapes=(
-            [
-                pltpu.SMEM((STACK_SIZE,), jnp.int32),
-                pltpu.SMEM((8,), jnp.int32),
-                pltpu.SMEM((8,), jnp.float32),
-            ]
-            + [pltpu.VMEM(TILE, jnp.float32)] * 10
-            + stream_scratch
-        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
+        name="bvh_traverse_anyhit" if any_hit else "bvh_traverse_closest",
     )
 
 
-def _tri_test_kind() -> str:
-    import os
+def pack_scene(scene) -> dict:
+    """Flatten the compiled scene into the kernel's layout (host-side).
 
-    return os.environ.get("POLARIS_TRI_TEST", "mt")
-
-
-def _pack_tris_hh(scene) -> np.ndarray:
-    """Havel–Herout per-triangle constants, 12 f32 each: the unnormalized
-    normal N with plane offset d0 = N·v0, plus the two barycentric plane
-    equations N1 = (e2×N)/|N|², d1 = −N1·v0 and N2 = (N×e1)/|N|²,
-    d2 = −N2·v0 (precomputed in f64). Degenerate triangles get |N|² floored
-    so the pack stays finite; the kernel's det² ≥ ε² test rejects them."""
-    v0 = scene.tri_v0.astype(np.float64)
-    e1 = scene.tri_e1.astype(np.float64)
-    e2 = scene.tri_e2.astype(np.float64)
-    n = np.cross(e1, e2)
-    nn = np.maximum((n * n).sum(axis=1, keepdims=True), 1e-300)
-    n1 = np.cross(e2, n) / nn
-    n2 = np.cross(n, e1) / nn
-    d0 = (n * v0).sum(axis=1, keepdims=True)
-    d1 = -(n1 * v0).sum(axis=1, keepdims=True)
-    d2 = -(n2 * v0).sum(axis=1, keepdims=True)
-    return (
-        np.concatenate([n, d0, n1, d1, n2, d2], axis=1)
-        .astype(np.float32)
-        .reshape(-1)
-    )
-
-
-def pack_scene(scene, stream_tris: bool = False) -> dict:
-    """Pack the compiled scene into the kernel's SMEM layout (host-side).
-
-    With ``stream_tris`` the triangle array stays in HBM, padded so the
-    kernel's fixed-size aligned DMA windows never over-read.
-    """
-    boxes = (
-        np.concatenate([scene.bvh_min, scene.bvh_max], axis=1)
-        .astype(np.float32)
-        .reshape(-1)
-    )
-    hh = _tri_test_kind() == "hh"
-    if hh:
-        tris = _pack_tris_hh(scene)
-    else:
-        tris = (
-            np.concatenate([scene.tri_v0, scene.tri_e1, scene.tri_e2], axis=1)
-            .astype(np.float32)
-            .reshape(-1)
-        )
-    # static near-child ordering hint per inner node: dominant separation
-    # axis of the two child centroids (2 bits) + whether the right child
-    # sits on the + side of that axis (1 bit); leaves get 0 (unused)
+    Inner nodes carry both children's boxes (leaves get zeros), so one node
+    visit reads one contiguous record."""
     ld = scene.bvh_ldata.astype(np.int64)
     rd = scene.bvh_rdata.astype(np.int64)
+    inner = ld > 0
     nmax = ld.shape[0] - 1
-    cl = (
-        scene.bvh_min[np.clip(ld, 0, nmax)] + scene.bvh_max[np.clip(ld, 0, nmax)]
-    )
-    cr = (
-        scene.bvh_min[np.clip(rd, 0, nmax)] + scene.bvh_max[np.clip(rd, 0, nmax)]
-    )
-    diff = cr - cl
-    axis = np.argmax(np.abs(diff), axis=1)
-    rpos = np.take_along_axis(diff, axis[:, None], 1)[:, 0] > 0
-    order = np.where(ld > 0, axis * 2 + rpos, 0).astype(np.int32)
-    if stream_tris:
-        total = -(-tris.size // STREAM_ALIGN) * STREAM_ALIGN + 2 * STREAM_ALIGN
-        tris = np.pad(tris, (0, total - tris.size))
-    w2o = scene.inst_w2o[:, :3, :].astype(np.float32).reshape(-1)
+    li = np.clip(ld, 0, nmax)
+    ri = np.clip(rd, 0, nmax)
+    boxes = np.concatenate(
+        [scene.bvh_min[li], scene.bvh_max[li], scene.bvh_min[ri], scene.bvh_max[ri]],
+        axis=1,
+    ).astype(np.float32)
+    boxes[~inner] = 0.0
+    tris = np.concatenate([scene.tri_v0, scene.tri_e1, scene.tri_e2], axis=1)
     return {
-        "pk_ldata": scene.bvh_ldata.astype(np.int32),
-        "pk_rdata": scene.bvh_rdata.astype(np.int32),
-        "pk_order": order,
-        "pk_boxes": boxes,
-        "pk_tris": tris,
-        "pk_w2o": w2o,
+        "pk_links": np.stack([ld, rd], axis=1).astype(np.int32).reshape(-1),
+        "pk_boxes": boxes.reshape(-1),
+        "pk_tris": tris.astype(np.float32).reshape(-1),
+        "pk_w2o": scene.inst_w2o[:, :3, :].astype(np.float32).reshape(-1),
         "pk_roots": scene.inst_bvh_root.astype(np.int32),
-        "pk_stream": stream_tris,
-        "pk_hh": hh,
     }
-
-
-def scene_smem_bytes(scene, stream_tris: bool = False) -> int:
-    tri_floats = 4 if _tri_test_kind() == "hh" else 3
-    return int(
-        scene.bvh_ldata.nbytes * 3
-        + scene.bvh_min.nbytes * 2
-        + (0 if stream_tris else scene.tri_v0.nbytes * tri_floats)
-        + scene.inst_w2o.nbytes
-        + scene.inst_bvh_root.nbytes
-    )
 
 
 def intersect_pallas(P, o, d, maxt, active, *, any_hit: bool):
     """P: packed scene dict (pack_scene); rays [N,3]/[N]. Returns Hit."""
     n = o.shape[0]
-    pad = (-n) % BLOCK_RAYS
-    if pad:
-        o = jnp.pad(o, ((0, pad), (0, 0)))
-        d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-        maxt = jnp.pad(maxt, (0, pad))
-        active = jnp.pad(active, (0, pad))
-    g = o.shape[0] // BLOCK_RAYS
-    shape = (g, BLOCK_TILES, *TILE)
-
-    def comp(x, i):
-        return x[:, i].reshape(shape)
-
-    import os
-
-    # measured on sphere 512²@16spp: the single-reduction vote with static
-    # near-child ordering is a net LOSS (43.0 vs 44.9 Mrays/s) — the weaker
-    # ordering adds more node/leaf visits than the saved vector→scalar sync.
-    # Kept as an opt-in experiment for deeper scenes.
-    one_vote = os.environ.get("POLARIS_ONE_VOTE", "0") != "0"
-    stream = bool(P.get("pk_stream", False))
-    hh = bool(P.get("pk_hh", False))
-    call = _build_call(
-        int(P["pk_ldata"].shape[0]),
-        int(P["pk_tris"].shape[0]),
-        int(P["pk_roots"].shape[0]),
-        g,
-        any_hit,
-        stream,
-        one_vote,
-        hh,
+    call = _build_call(n, any_hit, interpret_on(jax.devices()[0].platform))
+    t, u, v, tri, inst, found, _ = call(
+        P["pk_links"], P["pk_boxes"], P["pk_tris"], P["pk_w2o"], P["pk_roots"],
+        o.astype(jnp.float32).reshape(-1),
+        d.astype(jnp.float32).reshape(-1),
+        maxt.astype(jnp.float32),
+        active.astype(jnp.int32),
     )
-    t, u, v, tri, inst, found = call(
-        P["pk_ldata"],
-        P["pk_rdata"],
-        P["pk_order"],
-        P["pk_boxes"],
-        P["pk_tris"],
-        P["pk_w2o"],
-        P["pk_roots"],
-        comp(o, 0), comp(o, 1), comp(o, 2),
-        comp(d, 0), comp(d, 1), comp(d, 2),
-        maxt.reshape(shape),
-        active.astype(jnp.int32).reshape(shape),
-    )
-    found_flat = found.reshape(-1)[:n] != 0
-    t_flat = jnp.where(found_flat, t.reshape(-1)[:n], 0.0)
-    return Hit(
-        t_flat,
-        inst.reshape(-1)[:n],
-        tri.reshape(-1)[:n],
-        u.reshape(-1)[:n],
-        v.reshape(-1)[:n],
-        active[:n] & found_flat,
-    )
+    found = found != 0
+    return Hit(jnp.where(found, t, 0.0), inst, tri, u, v, active & found)

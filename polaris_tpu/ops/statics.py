@@ -142,8 +142,8 @@ def _apply_force(tex_fields, ops, bxdf_types, lights, bg_tex):
 
     Forcing a branch ON is image-identical by the statics invariant (its
     where-predicates stay all-false); it exists so benchmarks can measure a
-    machinery's marginal cost with the workload held exactly fixed
-    (docs/perf.md attribution method). Tokens: tex:<field>, bxdf:<name>,
+    machinery's marginal cost with the workload held exactly fixed.
+    Tokens: tex:<field>, bxdf:<name>,
     op:<name>, light:<area|env>, bg_tex.
     """
     import os

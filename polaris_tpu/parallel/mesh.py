@@ -9,7 +9,7 @@ TPU-native replacement for the reference's multi-device machinery
     ->  one SPMD program; XLA launches per-device executables
   * host-orchestrated accumulator merge onto the primary device
     (aggregateAccumulator, tracer.go:279-286, accumulator.cl:13-19)
-    ->  jax.lax.psum over the 'sample' axis (ICI collective)
+    ->  jax.lax.psum over the 'sample' axis (NVLink collective)
   * shared OpenCL context (device/context.go:11-28)  ->  the jax Mesh itself
   * the unimplemented 'Remote' network backend (tracer/tracer.go:52-58)
     ->  multi-host JAX over DCN: the same code runs unchanged on a
@@ -179,7 +179,7 @@ class DistributedRenderer:
         parameter gradients all-reduced over BOTH mesh axes -> SGD update.
 
         The gradient psum over ('tile', 'sample') is the renderer's
-        equivalent of data-parallel gradient all-reduce riding ICI
+        equivalent of data-parallel gradient all-reduce riding NVLink
         (SURVEY.md §2.3 'gradient all-reduce overlapped with backward
         shading'); XLA schedules the collective inside the backward pass.
         """

@@ -3,9 +3,9 @@
 The reference declared but never implemented a network backend
 (`tracer.Remote` flag, tracer/tracer.go:52-58; README.md:26 "allows
 implementation of a network backend to support multi-node multi-gpu
-rendering"). On TPU this is realized by multi-process JAX: every host runs
-the same SPMD program over the global mesh; ICI carries the sample/grad
-psums inside a slice, DCN carries cross-host collectives.
+rendering"). Here it is realized by multi-process JAX: every host runs the
+same SPMD program over the global mesh; NVLink carries the sample/grad psums
+inside a host, the network carries cross-host collectives.
 
 Because `DistributedRenderer` is written against a `jax.sharding.Mesh`, the
 exact same rendering/training code runs unchanged on a multi-host mesh; this

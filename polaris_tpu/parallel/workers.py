@@ -156,12 +156,11 @@ class WorkerPoolRenderer:
 def make_device_pool(scene, mode: str = "auto", devices=None,
                      height_quantum: int = 32) -> WorkerPoolRenderer:
     """One BandWorker per JAX device (each worker's programs pinned to its
-    device) — the pool analog of initTracers (default.go:199-292). Each
-    worker's first-frame share comes from the nominal device-speed prior
-    (≙ the reference's GFlops estimate, device.go:209-222)."""
+    device) — the pool analog of initTracers (default.go:199-292). The
+    first frame splits equally; the feedback scheduler then sizes bands
+    from measured render times."""
     import jax
 
-    from ..cli import device_speed
     from ..render.integrator import TpuRenderer
 
     devices = list(devices if devices is not None else jax.devices())
@@ -169,8 +168,7 @@ def make_device_pool(scene, mode: str = "auto", devices=None,
     for d in devices:
         r = TpuRenderer(scene, mode=mode)
         r = _pin_renderer(r, d)
-        # unknown device kinds (e.g. CPU) get speed 1.0 -> equal first split
-        workers.append(BandWorker(str(d), r, speed=device_speed(d) or 1.0))
+        workers.append(BandWorker(str(d), r))
     return WorkerPoolRenderer(workers, height_quantum=height_quantum)
 
 

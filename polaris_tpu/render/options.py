@@ -14,14 +14,13 @@ class RenderOptions:
     min_bounces_for_rr: int = 3
     exposure: float = 1.2
     seed: int = 0
-    # TPU-native RR variant: draw the Russian-roulette uniform per
+    # Block-coherent RR variant: draw the Russian-roulette uniform per
     # (32x32 block, sample, bounce) instead of per lane. Each lane's
     # marginal survival probability and 1/p boost are unchanged (unbiased),
     # but blocks die atomically so the traversal kernel's all-dead tile
     # skip triggers at late bounces. Costs intra-block noise correlation;
     # deliberate deviation from the reference's per-lane RR
-    # (pt_integrator.cl:112-124) — see docs/perf.md for the measured
-    # speed/variance tradeoff.
+    # (pt_integrator.cl:112-124).
     rr_tile_coherent: bool = False
 
     def __post_init__(self):

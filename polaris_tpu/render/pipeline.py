@@ -50,9 +50,9 @@ def save_png_stage(path: str) -> Stage:
     """Write the current image as PNG (≙ SaveFrameBuffer, pipeline.go:216-234)."""
 
     def run(img, opt, ctx):
-        from PIL import Image
+        from ..asset.png import save_image
 
-        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+        save_image(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
         _log.info("wrote %s", path)
         return img
 
@@ -102,15 +102,14 @@ def debug_dump_stage(channels: Sequence[str], out_dir: str = ".") -> Stage:
     DebugFlags gating per-frame debug images, pipeline.go:116-200)."""
 
     def run(img, opt, ctx):
-        from PIL import Image
-
+        from ..asset.png import save_image
         from .debug import render_debug
 
         renderer = ctx["renderer"]
         for ch in channels:
             dbg = render_debug(renderer, opt, ch, camera=ctx.get("camera"))
             p = os.path.join(out_dir, f"debug_{ch}.png")
-            Image.fromarray((np.clip(dbg, 0, 1) * 255).astype(np.uint8)).save(p)
+            save_image(p, (np.clip(dbg, 0, 1) * 255).astype(np.uint8))
             _log.info("wrote %s", p)
         return img
 

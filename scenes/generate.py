@@ -152,7 +152,10 @@ def _box(f, name, bmin, bmax, material, vb):
 
 
 def _checker_png(path, n=8, size=64):
-    from PIL import Image
+    import sys
+
+    sys.path.insert(0, os.path.dirname(HERE))
+    from polaris_tpu.asset.png import write_png
 
     tile = size // n
     img = np.zeros((size, size, 3), np.uint8)
@@ -160,7 +163,7 @@ def _checker_png(path, n=8, size=64):
         for x in range(size):
             c = 230 if ((x // tile) + (y // tile)) % 2 == 0 else 40
             img[y, x] = (c, c, c)
-    Image.fromarray(img).save(path)
+    write_png(path, img)
 
 
 def gen_mitsuba():

@@ -4,7 +4,7 @@ Claim under test: variance-driven per-block early stop delivers the same
 image quality as uniform cornell@64spp in substantially less wall time.
 Quality is MSE of the tonemapped image against a 512-spp reference render;
 "same" = adaptive MSE <= uniform MSE * (1 + margin). Prints one JSON line
-per configuration and writes BENCH_ADAPTIVE.json.
+per configuration.
 
 Usage: python scripts/bench_adaptive.py [--res 512 --budget 64]
 """
@@ -115,9 +115,6 @@ def main():
             "speedup_vs_uniform_frontier": round(t_match / t_ad, 2),
         })
         print(json.dumps(results[-1]))
-
-    with open(os.path.join(HERE, "BENCH_ADAPTIVE.json"), "w") as f:
-        json.dump(results, f, indent=1)
 
 
 if __name__ == "__main__":

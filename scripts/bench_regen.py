@@ -5,8 +5,8 @@ WITHIN live tiles (scattered RR deaths + misses). Path regeneration
 restarts a dead lane at its OWN pixel with its next sample index inside
 the loop (render_block_regen) — no permutation, no coherence loss.
 
-Run on real TPU: python scripts/bench_regen.py [--res 512]
-Writes BENCH_REGEN.json.
+Run on the GPU: python scripts/bench_regen.py [--res 512]
+Prints one JSON line per row.
 """
 
 import argparse
@@ -78,15 +78,6 @@ def main():
         )
         results[key] = row
         print(key, json.dumps(row))
-    out_path = os.path.join(HERE, "BENCH_REGEN.json")
-    if os.path.exists(out_path):
-        with open(out_path) as f:
-            merged = json.load(f)
-    else:
-        merged = {}
-    merged.update(results)
-    with open(out_path, "w") as f:
-        json.dump(merged, f, indent=1)
 
 
 if __name__ == "__main__":

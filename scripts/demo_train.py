@@ -1,4 +1,4 @@
-"""Inverse-rendering demo on real TPU: recover material colors from a target.
+"""Inverse-rendering demo on the GPU: recover material colors from a target.
 
 The differentiable capstone (SURVEY.md §7 step 5): darken/tint the Cornell
 scene's diffuse reflectances, render a target, then optimize the ORIGINAL
@@ -29,9 +29,8 @@ def main():
     ap.add_argument("--mode", default="auto")
     args = ap.parse_args()
 
-    from PIL import Image
-
     from polaris_tpu.asset.compiler.compiler import compile_scene
+    from polaris_tpu.asset.png import save_image
     from polaris_tpu.asset.wavefront import read_scene
     from polaris_tpu.render.grad import DifferentiableRenderer
     from polaris_tpu.render.options import RenderOptions
@@ -47,9 +46,8 @@ def main():
     )
 
     def save(name, img01):
-        Image.fromarray(
-            (np.clip(img01, 0, 1) * 255).astype(np.uint8)
-        ).save(os.path.join(out_dir, name))
+        save_image(os.path.join(out_dir, name),
+                   (np.clip(img01, 0, 1) * 255).astype(np.uint8))
 
     # --- target: secretly tinted diffuse reflectances ---
     r = DifferentiableRenderer(scene, mode=args.mode)

@@ -1,7 +1,7 @@
 """Measure rays/s scaling across mesh sizes (BASELINE: >=95% on 2 hosts).
 
-On a multi-chip/multi-host TPU slice this reports true ICI/DCN scaling; on
-this single-chip dev box it can exercise the virtual CPU mesh (functional
+On several GPUs (one host or many) this reports real NVLink/network
+scaling; without them it can exercise the virtual CPU mesh (functional
 check) — run with --cpu to force that.
 
 --weak: WEAK scaling — fixed work per device (a fixed row band each), so

@@ -1,4 +1,4 @@
-"""End-to-end ablation timings of the REAL render program on TPU.
+"""End-to-end ablation timings of the REAL render program on the GPU.
 
 Compiles bench-shaped variants of the full integrator and reports marginal
 costs derived from differences — the only measurement that survives XLA

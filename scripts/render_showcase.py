@@ -1,4 +1,4 @@
-"""Render all five benchmark configs to docs/renders/ (run on TPU or CPU).
+"""Render all five benchmark configs to docs/renders/ (run on the GPU or CPU).
 
 Usage: python scripts/render_showcase.py [--res 256] [--spp 32] [--mode auto]
 """
@@ -33,9 +33,8 @@ def main():
                          "low-spp frame | à-trous denoised, side by side")
     args = ap.parse_args()
 
-    from PIL import Image
-
     from polaris_tpu.asset.compiler.compiler import compile_scene
+    from polaris_tpu.asset.png import save_image
     from polaris_tpu.asset.wavefront import read_scene
     from polaris_tpu.render.integrator import TpuRenderer
     from polaris_tpu.render.options import RenderOptions
@@ -60,7 +59,7 @@ def main():
         img = r.render(opt)
         dt = time.perf_counter() - t0
         path = os.path.join(out_dir, f"{name}_{args.res}_{args.spp}spp.png")
-        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+        save_image(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
         print(f"{name}: {dt:.1f}s -> {path}", flush=True)
 
     if args.denoise_demo:
@@ -81,9 +80,7 @@ def main():
         sep = np.ones((args.res, 4, 3), np.float32)
         demo = np.concatenate([noisy, sep, den], axis=1)
         path = os.path.join(out_dir, "cornell_denoise_demo.png")
-        Image.fromarray(
-            (np.clip(demo, 0, 1) * 255).astype(np.uint8)
-        ).save(path)
+        save_image(path, (np.clip(demo, 0, 1) * 255).astype(np.uint8))
         print(f"denoise demo (2 spp | denoised): -> {path}", flush=True)
 
 

@@ -1,21 +1,13 @@
-"""Speed-of-light model for the packet traversal kernel (VERDICT weak #5).
+"""Hardware-free traversal work counts for a packet of rays.
 
-Counts, per traversal pass on realistic ray distributions, exactly what the
-Pallas kernel executes per 1024-ray tile: inner-node visits (2 slab tests +
-2 cross-lane reduction syncs each), leaf visits (LEAF_TIER-gated
-Möller–Trumbore tiers), and stack traffic — via a NumPy replica of the
-shared-stack vote traversal (same near-first ordering and best-t pruning).
+Counts, per traversal pass on realistic ray distributions, the work of a
+shared-stack packet traversal over one tile of rays: inner-node visits,
+leaf visits and triangles tested — via a NumPy replica of the vote
+traversal (same near-first ordering and best-t pruning). With
+``--tile-rays 1`` a packet is one ray, which gives the per-ray work of the
+one-ray-per-lane GPU kernel.
 
-Combined with measured per-pass device times (scripts/profile_passes.py)
-this solves the two-component cost model
-
-    T_pass = a * vector_ops + b * scalar_syncs
-
-for the effective vector-op throughput `a` and the vector->scalar sync
-latency `b`, and reports the speed-of-light (b = 0) Mrays/s. Output is a
-JSON block to paste into docs/perf.md.
-
-Usage: python scripts/roofline.py [--res 512] (CPU-only; no TPU needed)
+Usage: python scripts/roofline.py [--res 512] [--out counts.json] (CPU only)
 """
 
 import argparse
@@ -32,27 +24,15 @@ os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
-# per-visit vector-op counts on (8,128) tiles, read off the kernel source
-# (ops/intersect_pallas.py): slab test = 6 sub + 6 mul + 6 min/max pairs +
-# compares/selects ~ 26 ops; one box per child
-INNER_VEC_OPS = 2 * 26
-# MT det^2-scaled triangle test ~ 65 vector ops (cross products, dots,
-# compares, best-hit selects)
-TRI_VEC_OPS = 65
-INNER_SYNCS = 2          # two cross-lane reductions per inner node
-LEAF_SYNCS_ANY = 1       # any-hit early-out reduction per leaf
-
-
 def traverse_tile_counts(scene, o, d, maxt, act, tfar_cull=False):
-    """NumPy replica of the packet kernel's traversal for ONE tile.
+    """NumPy replica of a shared-stack packet traversal for ONE tile.
     Returns (inner_visits, leaf_visits, leaf_tris_tested).
 
     ``tfar_cull`` simulates t-far stack culling (round-3 structural
     candidate): each pushed far node carries its tile-min entry distance;
     at pop, the subtree is skipped outright when that distance can no longer
     beat the WORST live best-t in the tile (a scalar-vs-scalar compare in
-    the kernel; maintaining the tile-max best-t costs one extra reduction
-    per leaf visit)."""
+    a kernel)."""
     ld = scene.bvh_ldata.astype(np.int64)
     rd = scene.bvh_rdata.astype(np.int64)
     bmin = scene.bvh_min
@@ -158,15 +138,11 @@ def main():
                          "big-scene fixtures (terrain:640 = 819k tris)")
     ap.add_argument("--bounces", type=int, default=3)
     ap.add_argument("--tile-rays", type=int, default=1024,
-                    help="rays per traversal packet: 1024 = the (8,128) "
-                         "kernel tile over 32x32 pixel blocks; 256 = a "
-                         "hypothetical (2,128) tile over 16x16 blocks; 64 "
-                         "= (?,128)/8x8. The replay uses the matching "
-                         "blocked pixel order so the packet covers a "
-                         "compact screen block either way (round-4 VERDICT "
-                         "weak #1: the tile-union work is a function of "
-                         "packet size; this prices the sweep for free)")
-    ap.add_argument("--out", default="ROOFLINE_COUNTS.json")
+                    help="rays per traversal packet (a square): 1024 = "
+                         "32x32 pixel blocks, 1 = one ray per lane. The "
+                         "replay uses the matching blocked pixel order so a "
+                         "packet covers a compact screen block")
+    ap.add_argument("--out", default=None, help="also write the counts here")
     args = ap.parse_args()
 
     import jax
@@ -225,16 +201,12 @@ def main():
             )
             tot += np.asarray(c, np.int64)
         inner, leaf, tris = map(int, tot)
-        vec_ops = inner * INNER_VEC_OPS + tris * TRI_VEC_OPS
-        syncs = inner * INNER_SYNCS
         out[f"bounce{b}"] = {
             "occupancy": float(act_np.mean()),
             "tiles": ntiles,
             "inner_visits": inner,
             "leaf_visits": leaf,
             "tris_tested": tris,
-            "vector_ops_8x128": vec_ops,
-            "scalar_syncs": syncs,
             "per_tile": {
                 "inner": round(inner / ntiles, 1),
                 "leaf": round(leaf / ntiles, 1),
@@ -255,9 +227,10 @@ def main():
         state = (res["next_o"], res["next_d"], res["throughput"],
                  res["flags"], res["next_mask"])
 
-    with open(os.path.join(HERE, args.out), "w") as f:
-        json.dump(out, f, indent=1)
-    print("wrote", args.out)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+        print("wrote", args.out)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """BASELINE config 1 gate at moderate scale with ALL features on:
-full bounce count, Russian roulette, MIS NEE — TPU path vs golden oracle."""
+full bounce count, Russian roulette, MIS NEE — device path vs golden oracle."""
 
 import numpy as np
 import pytest

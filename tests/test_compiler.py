@@ -168,19 +168,6 @@ def test_byte_texture_storage(scenes_dir, tmp_path):
     np.testing.assert_array_equal(sc2.tex_store, sc_u8.tex_store)
 
 
-def test_wide_collapse_shares_instanced_blas(scenes_dir):
-    """Instances sharing a BLAS share its 8-wide subtree (review finding:
-    re-collapsing per instance multiplied the node forest by K)."""
-    from polaris_tpu.asset.compiler.compiler import compile_scene
-    from polaris_tpu.asset.wavefront import read_scene
-    from polaris_tpu.ops.intersect_pallas8_nodes import _collapse_wide
-
-    sc = compile_scene(read_scene(os.path.join(scenes_dir, "instanced.obj")))
-    _, _, _, inst_entry = _collapse_wide(sc)
-    n_unique_roots = len(set(int(r) for r in sc.inst_bvh_root))
-    assert len(set(int(e) for e in inst_entry)) == n_unique_roots
-
-
 def test_byte_textures_slow_path_guarded(scenes_dir, tmp_path):
     """The legacy flat-f32 texture fallback refuses byte-stored scenes
     loudly instead of fetching garbage (review finding)."""

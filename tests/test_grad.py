@@ -68,9 +68,8 @@ def test_grad_matches_finite_difference(cornell_scene, opt):
 
 
 def test_grads_through_pallas_traversal(cornell_scene, opt):
-    """The production path on TPU is mode='auto' -> the Pallas packet kernel
-    under jax.grad (round-1 VERDICT weak #3: this combination was never
-    tested). Run it in interpret mode and require agreement with the
+    """The production path on the GPU is mode='auto' -> the Pallas
+    traversal kernel under jax.grad. Run it in interpret mode and require agreement with the
     bvh-mode gradients: traversal is gradient-stopped on both sides
     (integrator.py:257-263), so the backward programs are identical and the
     only differences are forward-value ulps in the intersection results."""

@@ -37,8 +37,8 @@ def test_two_process_render_matches(cornell_scene, tmp_path):
 @pytest.mark.slow
 def test_two_process_sample_axis_render(cornell_scene, tmp_path):
     """Sample-axis split ACROSS processes (round-4 VERDICT weak #5): the
-    per-sample accumulator psum is a cross-process collective (DCN on a
-    pod), not intra-host ICI, and must still match the single-process
+    per-sample accumulator psum is a cross-process collective (the network
+    between hosts), not an intra-host one, and must still match the single-process
     image to f32 tolerance."""
     from polaris_tpu.parallel.multihost import spawn_local_processes
 

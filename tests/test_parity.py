@@ -1,5 +1,5 @@
-"""Forward-image parity: TPU integrator (both traversal modes) vs the NumPy
-golden renderer. This is the allclose gate the reference never had
+"""Forward-image parity: the device integrator (every traversal mode) vs the
+NumPy golden renderer. This is the allclose gate the reference never had
 (SURVEY.md §4 'no numerical ground truth')."""
 
 import numpy as np
@@ -66,82 +66,10 @@ def test_dispersive_parity(_scene):
 
 
 def test_pallas_parity(cornell_scene):
-    """Pallas kernels (interpret mode on CPU) against the golden renderer."""
+    """The Pallas traversal kernel (interpret mode on CPU) against the
+    golden renderer."""
     opt = RenderOptions(width=32, height=32, spp=1, num_bounces=2, min_bounces_for_rr=3)
-    _compare(cornell_scene, opt, modes=("pallas", "pallas8"))
-
-
-def test_pallas_nodes_matches_smem(cornell_scene, monkeypatch):
-    """The streamed-NODES kernel (big-scene path: depth-ordered resident
-    prefix + HBM record DMA) must produce EXACTLY the in-SMEM kernel's
-    image. Resident prefix forced tiny so nearly every visit streams."""
-    monkeypatch.setenv("POLARIS_RESIDENT_KB", "1")
-    opt = RenderOptions(width=32, height=32, spp=1, num_bounces=2, min_bounces_for_rr=3)
-    smem = np.asarray(TpuRenderer(cornell_scene, mode="pallas").render_accum(opt))
-    nodes = np.asarray(
-        TpuRenderer(cornell_scene, mode="pallas_nodes").render_accum(opt)
-    )
-    np.testing.assert_array_equal(nodes, smem)
-
-
-def test_pallas_nodes_terrain_parity():
-    """A procedural instanced terrain through the streamed-nodes kernel vs
-    the per-lane XLA traversal (both intersection paths are independent)."""
-    from polaris_tpu.asset.compiler.compiler import compile_scene
-    from polaris_tpu.asset.procedural import make_terrain_scene
-
-    scene = compile_scene(make_terrain_scene(grid=32))
-    opt = RenderOptions(width=24, height=24, spp=1, num_bounces=2, min_bounces_for_rr=3)
-    ref = np.asarray(TpuRenderer(scene, mode="bvh").render_accum(opt))
-    got = np.asarray(TpuRenderer(scene, mode="pallas_nodes").render_accum(opt))
-    assert ref.mean() > 0.01  # scene actually renders something
-    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-3)
-
-
-def test_pallas8_nodes_matches_smem(cornell_scene, monkeypatch):
-    """The 8-wide streamed kernel (big-scene path round 4: wide nodes +
-    resident prefix + HBM window DMA for nodes AND triangles) must produce
-    EXACTLY the same image with a forced-tiny resident prefix (nearly every
-    node visit streams) as with the full forest resident — pinning the
-    window-cache/DMA machinery — and match the binary in-SMEM kernel's
-    image bit-for-bit (same det^2-scaled leaf arithmetic; the wide visit
-    order may only differ on exact ties, absent here)."""
-    opt = RenderOptions(width=32, height=32, spp=1, num_bounces=2, min_bounces_for_rr=3)
-    smem = np.asarray(TpuRenderer(cornell_scene, mode="pallas").render_accum(opt))
-    full = np.asarray(
-        TpuRenderer(cornell_scene, mode="pallas8_nodes").render_accum(opt)
-    )
-    monkeypatch.setenv("POLARIS_RESIDENT_KB", "1")
-    tiny = np.asarray(
-        TpuRenderer(cornell_scene, mode="pallas8_nodes").render_accum(opt)
-    )
-    np.testing.assert_array_equal(tiny, full)
-    np.testing.assert_array_equal(full, smem)
-
-
-def test_pallas8_nodes_terrain_parity():
-    """Instanced terrain through the 8-wide streamed kernel vs the
-    independent per-lane XLA traversal."""
-    from polaris_tpu.asset.compiler.compiler import compile_scene
-    from polaris_tpu.asset.procedural import make_terrain_scene
-
-    scene = compile_scene(make_terrain_scene(grid=32))
-    opt = RenderOptions(width=24, height=24, spp=1, num_bounces=2, min_bounces_for_rr=3)
-    ref = np.asarray(TpuRenderer(scene, mode="bvh").render_accum(opt))
-    got = np.asarray(TpuRenderer(scene, mode="pallas8_nodes").render_accum(opt))
-    assert ref.mean() > 0.01
-    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-3)
-
-
-def test_pallas_stream_matches_smem(cornell_scene):
-    """The HBM triangle-streaming kernel (big-scene path: leaves DMA'd into
-    SMEM on demand) must produce EXACTLY the in-SMEM kernel's image."""
-    opt = RenderOptions(width=32, height=32, spp=1, num_bounces=2, min_bounces_for_rr=3)
-    smem = np.asarray(TpuRenderer(cornell_scene, mode="pallas").render_accum(opt))
-    stream = np.asarray(
-        TpuRenderer(cornell_scene, mode="pallas_stream").render_accum(opt)
-    )
-    np.testing.assert_array_equal(stream, smem)
+    _compare(cornell_scene, opt, modes=("pallas",))
 
 
 def test_image_nonblack(cornell_scene):

@@ -83,11 +83,10 @@ def test_regen_rr_and_offsets(cornell_scene):
 def test_regen_flag_sanitized(cornell_scene):
     """regen is an execution strategy for the plain integrator only; the
     ctor drops it when combined with the special lane-layout modes
-    (compact permutes lanes per bounce) and with hybrid's peeled bounce
-    kernel (regen mixes bounce depths in one pass)."""
+    (compact permutes lanes per bounce); every traversal mode keeps it."""
     r = TpuRenderer(cornell_scene, mode="bvh", regen=True, compact=True)
     assert r.regen is False
     r = TpuRenderer(cornell_scene, mode="bvh", regen=True)
     assert r.regen is True
-    r = TpuRenderer(cornell_scene, mode="hybrid", regen=True)
-    assert r.regen is False
+    r = TpuRenderer(cornell_scene, mode="pallas", regen=True)
+    assert r.regen is True

@@ -139,7 +139,7 @@ def test_band_jit_cache_keys_frame_height(cornell_scene):
 
 
 def test_band_spp_chunking_matches_single_launch(cornell_scene):
-    """Band renders must chunk spp by spp_per_launch (watchdog) and stay
+    """Band renders must chunk spp by spp_per_launch and stay
     bit-identical to an unchunked band."""
     opt = RenderOptions(width=16, height=32, spp=6, num_bounces=2, min_bounces_for_rr=3)
     r1 = TpuRenderer(cornell_scene, mode="bvh")
